@@ -10,10 +10,10 @@ import pytest
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from grtcode_tpu.framework import Atmosphere
-from grtcode_tpu.utils.debug import debug_mode, validate_atmosphere, checked
-from grtcode_tpu.utils.metrics import Metrics, grid_points, profiler_trace
-from grtcode_tpu.utils.segments import SegmentManifest, run_segments
+from grtcode_jax.framework import Atmosphere
+from grtcode_jax.utils.debug import debug_mode, validate_atmosphere, checked
+from grtcode_jax.utils.metrics import Metrics, grid_points, profiler_trace
+from grtcode_jax.utils.segments import SegmentManifest, run_segments
 from tools.combine_segments import rebin_spectral
 
 
@@ -127,7 +127,7 @@ def test_rebin_spectral_matches_reference_combiner():
 
 def test_verbosity_levels_and_error_buffer(capsys):
     """utilities/src/verbosity.c:28-83 equivalents."""
-    from grtcode_tpu.utils import verbosity as vb
+    from grtcode_jax.utils import verbosity as vb
 
     vb.clear_error_buffer()
     vb.set_verbosity(vb.GRTCODE_NONE)
@@ -164,8 +164,8 @@ def test_optics_update():
     import jax.numpy as jnp
     import numpy as np
     import pytest
-    from grtcode_tpu.optics import Optics
-    from grtcode_tpu.spectral import SpectralGrid
+    from grtcode_jax.optics import Optics
+    from grtcode_jax.spectral import SpectralGrid
 
     grid = SpectralGrid(1.0, 2.0, 0.5)
     o = Optics.zeros(2, grid)

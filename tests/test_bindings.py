@@ -1,8 +1,8 @@
-"""C ABI tests: load native/libgrtcode_tpu_c.so via ctypes in-process.
+"""C ABI tests: load native/libgrtcode_jax_c.so via ctypes in-process.
 
 The shim embeds CPython; loaded inside an already-running interpreter,
 grt_initialize is a no-op boot (Py_IsInitialized() is true) and all calls
-dispatch into grtcode_tpu.bindings.capi_impl through the registry.  Mirrors
+dispatch into grtcode_jax.bindings.capi_impl through the registry.  Mirrors
 the role of the reference's fortran-bindings tests (none exist upstream —
 this is stricter than parity).
 """
@@ -18,7 +18,7 @@ NATIVE = pathlib.Path(__file__).resolve().parents[1] / "native"
 
 @pytest.fixture(scope="module")
 def lib():
-    so = NATIVE / "libgrtcode_tpu_c.so"
+    so = NATIVE / "libgrtcode_jax_c.so"
     if not so.exists():
         rc = subprocess.run(["make", "-C", str(NATIVE)],
                             capture_output=True).returncode
@@ -51,7 +51,7 @@ def test_device_selection(lib):
     h = ctypes.c_int64()
     assert lib.grt_create_device(ctypes.c_int(-1), ctypes.byref(h)) == 0
     assert lib.grt_use_device(h) == 0
-    from grtcode_tpu.bindings import capi_impl
+    from grtcode_jax.bindings import capi_impl
     assert capi_impl._default_device is not None
     assert capi_impl._default_device.platform == "cpu"
     # Out-of-range id fails with the reference's range code
@@ -73,7 +73,7 @@ def test_longwave_fluxes_t_layers(lib):
     opt = ctypes.c_int64()
     assert lib.grt_create_optics(ctypes.c_int(nlayers), grid,
                                  ctypes.byref(opt)) == 0
-    from grtcode_tpu.bindings import capi_impl
+    from grtcode_jax.bindings import capi_impl
     capi_impl._get(opt.value)["tau"][:] = 0.3
 
     tlev = np.linspace(220.0, 290.0, nlayers + 1)
@@ -117,7 +117,7 @@ def test_optics_add_and_properties(lib):
     for h in (a, b, res):
         assert lib.grt_create_optics(ctypes.c_int(2), grid,
                                      ctypes.byref(h)) == 0
-    from grtcode_tpu.bindings import capi_impl
+    from grtcode_jax.bindings import capi_impl
     capi_impl._get(a.value)["tau"][:] = 1.0
     capi_impl._get(b.value)["tau"][:] = 2.0
     parts = np.array([a.value, b.value], dtype=np.int64)

@@ -4,7 +4,7 @@ Golden fixture tests/data/bins_golden.txt is produced by
 tools/goldens/bins_harness.c, which compiles the unmodified reference
 kernels and drives calc_optical_depth_bin_sweep (wavenumber_sweep) and
 calc_optical_depth_line_sweep plus sort_lines and the final quadratic
-wing interpolation (kernels.c:177-406, 514-581), with d = 0 so the TPU
+wing interpolation (kernels.c:177-406, 514-581), with d = 0 so this
 build's host-side bracketing is index-exact.
 """
 import os
@@ -12,11 +12,11 @@ import os
 import numpy as np
 import pytest
 
-from grtcode_tpu import constants
-from grtcode_tpu.gas_optics import bins as bins_mod
-from grtcode_tpu.gas_optics.gas_optics import GasOptics
-from grtcode_tpu.gas_optics.hitran import synthetic_catalog
-from grtcode_tpu.spectral import SpectralGrid
+from grtcode_jax import constants
+from grtcode_jax.gas_optics import bins as bins_mod
+from grtcode_jax.gas_optics.gas_optics import GasOptics
+from grtcode_jax.gas_optics.hitran import synthetic_catalog
+from grtcode_jax.spectral import SpectralGrid
 
 from test_gasoptics_pipeline import _lcg_params, NUM_LEVELS  # noqa: E402
 
@@ -115,4 +115,34 @@ def test_bin_method_spectral_blocks(method):
             *args, block_start=start, block_size=size))
         want = full[:, start:start + size]
         np.testing.assert_allclose(block[:, :want.shape[1]], want,
+                                   rtol=1e-6, atol=1e-8)
+
+
+@pytest.mark.parametrize("method", ["wavenumber_sweep", "line_sweep"])
+def test_bin_method_batched_block_equals_slice(method):
+    """A batched (B=2) bin-method spectral block at tile-aligned starts
+    that are not bin-group multiples equals the matching slice of the
+    full band for every column."""
+    v0, s0, yair, yself, en, nexp, d, iso = _lcg_params()
+    cat = synthetic_catalog(1, v0, s0, yair=yair, yself=yself, en=en,
+                            n=nexp, d=d, iso=iso)
+    grid = SpectralGrid(100.0, 400.0, 0.1)
+    gas = GasOptics(grid, line_chunk=64, method=method)
+    gas.add_catalog(cat)
+    i = np.arange(NUM_LEVELS)
+    p_mb = (1e-5 + (1.0 - 1e-5) * i / (NUM_LEVELS - 1.0)) \
+        / constants.MB_TO_ATM
+    t = 215.0 + 73.0 * i / (NUM_LEVELS - 1.0)
+    x = 1e-5 + 3e-3 * i / (NUM_LEVELS - 1.0)
+    p2 = np.stack([p_mb, 0.8 * p_mb]).astype(np.float32)
+    t2 = np.stack([t, t - 12.0]).astype(np.float32)
+    x2 = np.stack([x, 2.0 * x]).astype(np.float32)
+    full = np.asarray(gas.optical_depth(p2, t2, {1: x2}))
+    assert full.shape == (2, NUM_LEVELS - 1, grid.n)
+    q = gas.block_quantum
+    for start in (5 * q, 23 * q, (grid.n // q) * q):
+        block = np.asarray(gas.optical_depth(
+            p2, t2, {1: x2}, block_start=start, block_size=8 * q))
+        want = full[..., start:start + 8 * q]
+        np.testing.assert_allclose(block[..., :want.shape[-1]], want,
                                    rtol=1e-6, atol=1e-8)

@@ -3,8 +3,8 @@
 The reference sizes its work arrays for up to 600 000 lines per molecule
 (gas-optics/src/gas_optics.c:46) and validates up to 200 atmospheric
 layers (utilities/src/grtcode_config.h MAX_NUM_LEVELS); this build has
-no fixed arrays, but the HOST-side index machinery (tile/chunk/bin/point
-range tables) must stay integer-exact and in-bounds at that scale.
+no fixed arrays, but the HOST-side index machinery (tile/line/point range
+tables) must stay integer-exact and in-bounds at that scale.
 These tests pin exactly that — pure numpy, no device compute — so a
 capacity regression (e.g. an int32 overflow in a range product) fails
 here rather than in a production run.
@@ -12,12 +12,10 @@ here rather than in a production run.
 import numpy as np
 import pytest
 
-from grtcode_tpu.gas_optics import bins as bins_mod
-from grtcode_tpu.gas_optics import bins_pallas as bp
-from grtcode_tpu.gas_optics import lines as lines_mod
-from grtcode_tpu.gas_optics import pallas_kernels as pk
-from grtcode_tpu.gas_optics.hitran import synthetic_catalog
-from grtcode_tpu.spectral import SpectralGrid
+from grtcode_jax.gas_optics import lines as lines_mod
+from grtcode_jax.gas_optics import pallas_kernels as pk
+from grtcode_jax.gas_optics.hitran import synthetic_catalog
+from grtcode_jax.spectral import SpectralGrid
 
 L = 600_000          # gas_optics.c:46 MAX_NUM_LINES-equivalent
 NLAYERS = 200        # grtcode_config.h level ceiling
@@ -40,19 +38,22 @@ def test_line_sample_tables_at_600k(bound):
     grid = SpectralGrid(1.0, 3250.0, 0.1)
     fsteps = 250
     margin = lines_mod.shift_margin(bound, grid.dw)
-    ranges = pk.build_chunk_ranges(
-        bound.c0, grid.n, fsteps, tile=64, ch=32, shift_margin=margin,
-        near_hw=20, region0_hw=lines_mod.region0_halfwidth(bound, grid.dw))
+    tab = pk.build_line_ranges(
+        bound.c0, grid.n, fsteps, tile=64, shift_margin=margin,
+        near_hw=20,
+        region0_hw=lines_mod.region0_halfwidth(bound, grid.dw)).table
     ntiles = -(-grid.n // 64)
-    assert ranges.lo.shape == (ntiles,)
-    # Every chunk range stays inside the padded catalog; counts sane.
-    assert ranges.lpad >= L
-    end = ranges.lo.astype(np.int64) + ranges.nchunks.astype(np.int64) * 32
-    assert (end <= ranges.lpad).all()
-    assert (ranges.cnl <= ranges.cnh).all()
-    assert (ranges.cnh <= ranges.nchunks).all()
-    # Index arithmetic did not wrap (int32 positivity at 600k lines).
-    assert (ranges.lo >= 0).all() and int(end.max()) >= L
+    assert tab.shape == (pk.NTAB, ntiles)
+    # Every range stays inside the catalog, zones are ordered, and the
+    # index arithmetic did not wrap (int32 positivity at 600k lines).
+    seg = tab[[pk.T_LO, pk.T_A, pk.T_B, pk.T_C, pk.T_D, pk.T_E, pk.T_F,
+               pk.T_HI]].astype(np.int64)
+    assert (seg >= 0).all() and (np.diff(seg, axis=0) >= 0).all()
+    assert int(seg.max()) == L
+    assert (tab[pk.T_NL] <= tab[pk.T_NH]).all()
+    # The interior (unmasked) zone carries most of the far-wing work.
+    interior = (seg[2] - seg[1]) + (seg[6] - seg[5])
+    assert interior.sum() > 0.5 * (seg[7] - seg[0]).sum()
 
     near = lines_mod.near_core_halfwidth(bound, grid.dw)
     pr = lines_mod.build_point_ranges(bound, grid.n, min(near, fsteps),
@@ -60,30 +61,6 @@ def test_line_sample_tables_at_600k(bound):
     assert (pr.hi >= pr.lo).all() and int(pr.hi.max()) <= L
     # Every line is reachable from some grid point's range.
     assert int(pr.lo.min()) == 0 and int(pr.hi.max()) == L
-
-
-def test_bin_tables_at_600k(bound):
-    grid = SpectralGrid(1.0, 3250.0, 0.1)
-    bins = bins_mod.create_spectral_bins(grid.n, grid.w0, grid.dw, 1.0)
-    br = bins_mod.build_bin_ranges(bound, bins, mode="bin_sweep")
-    # Coverage: every line is local to at least one bin, and the union
-    # of local ranges is exactly [0, L).
-    lend = br.local_lo.astype(np.int64) + br.local_cnt.astype(np.int64)
-    assert int(lend.max()) == L
-    assert int(br.local_lo.min()) == 0
-    rend = br.rem_hi_start.astype(np.int64) + br.rem_cnt_r.astype(np.int64)
-    assert int(rend.max()) <= L
-
-    tables = bp.build_bin_kernel_tables(
-        br, bins, bound, ch=32, G=8,
-        region0_hw=lines_mod.region0_halfwidth(bound, grid.dw),
-        min_gap_points=1.0 / grid.dw)
-    assert tables.lpad >= L
-    gend = tables.glo.astype(np.int64) + \
-        tables.gnch.astype(np.int64) * 32
-    assert (gend <= tables.lpad).all()
-    assert (tables.ill <= tables.ilh).all()
-    assert (tables.irl <= tables.irh).all()
 
 
 def test_prepare_200_layers(bound):

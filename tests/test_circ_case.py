@@ -11,10 +11,10 @@ import h5py
 import numpy as np
 import pytest
 
-from grtcode_tpu.apps import circ
-from grtcode_tpu.framework import pressure_interp_layers_to_levels
-from grtcode_tpu.gas_optics.molecules import CfcId, CiaId, MoleculeId
-from grtcode_tpu.utils import ncio
+from grtcode_jax.apps import circ
+from grtcode_jax.framework import pressure_interp_layers_to_levels
+from grtcode_jax.gas_optics.molecules import CfcId, CiaId, MoleculeId
+from grtcode_jax.utils import ncio
 
 NLEV = 9
 NLAY = NLEV - 1

@@ -11,7 +11,7 @@ import h5py
 import numpy as np
 import pytest
 
-from grtcode_tpu.apps import circ, era5, rfmip
+from grtcode_jax.apps import circ, era5, rfmip
 
 # Reuse the app test fixtures (synthetic netCDF inputs).
 from tests.test_rfmip import input_file  # noqa: F401
@@ -58,7 +58,7 @@ def test_era5_main(era5_file, ghg_file, tmp_path):  # noqa: F811
 
 def test_era5_main_mesh(era5_file, ghg_file, tmp_path):  # noqa: F811
     """-mesh CxS shards the app run over a (columns x spectral) device
-    mesh from the command line (the TPU-native counterpart of the
+    mesh from the command line (the counterpart of the
     reference's per-node -x/-X SLURM slices); results match the
     unsharded run."""
     out_m = str(tmp_path / "era5_mesh.nc")
@@ -74,7 +74,7 @@ def test_era5_main_mesh(era5_file, ghg_file, tmp_path):  # noqa: F811
 
 
 def test_mesh_flag_rejects_bad_spec():
-    from grtcode_tpu.framework import cli
+    from grtcode_jax.framework import cli
 
     p = cli.shared_parser("t")
     args = p.parse_args(["none", "none", "-mesh", "nonsense"])

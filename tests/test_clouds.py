@@ -5,13 +5,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from grtcode_tpu.clouds import (beta_value, beta_inverse, overlap_parameter,
+from grtcode_jax.clouds import (beta_value, beta_inverse, overlap_parameter,
                                 cloudiness, sample_condensate,
                                 PadeCloudOptics, CloudOpticsLib,
                                 ice_particle_size)
-from grtcode_tpu.clouds.lib import band_to_grid
-from grtcode_tpu.clouds.pade import synthetic_pade_table
-from grtcode_tpu.spectral import SpectralGrid
+from grtcode_jax.clouds.lib import band_to_grid
+from grtcode_jax.clouds.pade import synthetic_pade_table
+from grtcode_jax.spectral import SpectralGrid
 
 
 def test_beta_inverse_roundtrip():
@@ -104,7 +104,7 @@ def test_pade_evaluate_and_band_map():
 def test_allsky_driver_tier():
     """All-sky tier through the framework: cloudy columns emit more LW
     down at the surface and reflect more SW than clear columns."""
-    from grtcode_tpu.apps import circ
+    from grtcode_jax.apps import circ
     atm = circ.case1_atmosphere(clean=True, clear=False)
     # CIRC case 1 is a clear-sky case (all cloud fields zero); inject a
     # synthetic low liquid deck + cirrus layer to exercise the tier.
@@ -135,7 +135,7 @@ def test_allsky_driver_tier():
 # -- Hu & Stamnes legacy liquid optics (liquid_cloud_optics.c:12-104) --------
 
 def _hu_stamnes_fixture():
-    from grtcode_tpu.clouds import HuStamnesLiquidOptics
+    from grtcode_jax.clouds import HuStamnesLiquidOptics
     rng = np.random.default_rng(7)
     nbins, nbands = 4, 3
     radii = np.array([2.5, 10.0, 20.0, 40.0, 60.0])

@@ -10,8 +10,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from grtcode_tpu.solvers.disort import disort_shortwave, gauss_streams
-from grtcode_tpu.solvers.shortwave import shortwave_fluxes
+from grtcode_jax.solvers.disort import disort_shortwave, gauss_streams
+from grtcode_jax.solvers.shortwave import shortwave_fluxes
 
 MU0 = 0.6
 TSI = 1361.0

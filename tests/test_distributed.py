@@ -2,7 +2,7 @@
 
 The reference's multi-node story is SLURM `-x/-X` column slices + per-node
 netCDF segments + a combiner (GRTworkflow/run-rfmip-irf.sh:102-125,
-era5/test/combine-segments.py); grtcode_tpu/parallel/distributed.py is the
+era5/test/combine-segments.py); grtcode_jax/parallel/distributed.py is the
 jax.distributed re-design with the same segment/recovery contract.
 """
 import os
@@ -13,8 +13,8 @@ import pytest
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), os.pardir))
 
-from grtcode_tpu.parallel import distributed  # noqa: E402
-from grtcode_tpu.utils.segments import SegmentManifest  # noqa: E402
+from grtcode_jax.parallel import distributed  # noqa: E402
+from grtcode_jax.utils.segments import SegmentManifest  # noqa: E402
 
 
 def test_column_slice_partitions_exactly():
@@ -135,7 +135,7 @@ def test_rfmip_app_column_segments_equal_full_run(tmp_path):
     (run-rfmip-irf.sh:102-125 runs the real binary per node)."""
     import h5py
 
-    from grtcode_tpu.apps import rfmip
+    from grtcode_jax.apps import rfmip
     from tests.test_rfmip import input_file as _input_fixture  # noqa
     import tests.test_rfmip as tr
 

@@ -23,14 +23,14 @@ import pytest
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), os.pardir))
 from tools.goldens import driver_inputs  # noqa: E402
 
-from grtcode_tpu.framework.atmosphere import Atmosphere  # noqa: E402
-from grtcode_tpu.framework.driver import RadiationDriver  # noqa: E402
-from grtcode_tpu.gas_optics.continua import (OzoneContinuum,  # noqa: E402
+from grtcode_jax.framework.atmosphere import Atmosphere  # noqa: E402
+from grtcode_jax.framework.driver import RadiationDriver  # noqa: E402
+from grtcode_jax.gas_optics.continua import (OzoneContinuum,  # noqa: E402
                                              WaterVaporContinuum)
-from grtcode_tpu.gas_optics.gas_optics import GasOptics  # noqa: E402
-from grtcode_tpu.gas_optics.molecules import CfcId, CiaId  # noqa: E402
-from grtcode_tpu.solvers.solar_flux import SolarFlux  # noqa: E402
-from grtcode_tpu.spectral import SpectralGrid  # noqa: E402
+from grtcode_jax.gas_optics.gas_optics import GasOptics  # noqa: E402
+from grtcode_jax.gas_optics.molecules import CfcId, CiaId  # noqa: E402
+from grtcode_jax.solvers.solar_flux import SolarFlux  # noqa: E402
+from grtcode_jax.spectral import SpectralGrid  # noqa: E402
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "data", "driver_golden.txt")
 # The reference's own contract is 1% (check_results.c:39-53); this f32
@@ -57,7 +57,12 @@ def _load_golden():
 
 @pytest.fixture(scope="module")
 def results(tmp_path_factory):
-    d = str(tmp_path_factory.mktemp("driver_inputs"))
+    return run_golden_driver(str(tmp_path_factory.mktemp("driver_inputs")))
+
+
+def run_golden_driver(d):
+    """Write the synthetic inputs into directory ``d`` and run all three
+    sky tiers through the app path; returns the FluxResults."""
     atm_data = driver_inputs.write_inputs(d)
 
     lw_grid = SpectralGrid(*driver_inputs.LW_GRID)
@@ -87,9 +92,9 @@ def results(tmp_path_factory):
     # framework's Pade + band->grid chain.
     import jax.numpy as jnp
 
-    from grtcode_tpu.clouds.lib import band_to_grid, ice_particle_size
-    from grtcode_tpu.clouds.pade import PadeCloudOptics
-    from grtcode_tpu.optics import Optics
+    from grtcode_jax.clouds.lib import band_to_grid, ice_particle_size
+    from grtcode_jax.clouds.pade import PadeCloudOptics
+    from grtcode_jax.optics import Optics
 
     pade = driver_inputs.pade_tables()
     cld = driver_inputs.clouds()

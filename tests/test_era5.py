@@ -4,9 +4,9 @@ import h5py
 import numpy as np
 import pytest
 
-from grtcode_tpu.apps import era5, circ
-from grtcode_tpu.gas_optics.molecules import CfcId, MoleculeId
-from grtcode_tpu.spectral import SpectralGrid
+from grtcode_jax.apps import era5, circ
+from grtcode_jax.gas_optics.molecules import CfcId, MoleculeId
+from grtcode_jax.spectral import SpectralGrid
 
 T, Z, Y, X = 2, 8, 3, 4
 NLAY = Z - 1
@@ -126,7 +126,7 @@ def test_lw_only_run_and_segments(era5_file, ghg_file, tmp_path):
     # stay define-only in the merged file: fill values, zero storage —
     # the combiner must NOT densify them (a production spectral SW
     # variable would be hundreds of GB of fill).
-    from grtcode_tpu.utils.ncio import Writer
+    from grtcode_jax.utils.ncio import Writer
     with h5py.File(merged, "r") as f:
         assert f["rsutaf"].id.get_storage_size() == 0
         assert np.all(np.asarray(f["rsutaf"]) == Writer.FILL_VALUE)
@@ -165,7 +165,7 @@ def test_output_variable_surface(era5_file, ghg_file, tmp_path):
         # the LW-only run leaves SW variables as netCDF fill values
         # (NC_FILL_FLOAT, exactly the reference's file behavior) so
         # "never computed" is distinguishable from a genuine zero flux.
-        from grtcode_tpu.utils.ncio import Writer
+        from grtcode_jax.utils.ncio import Writer
         assert np.asarray(f["ch4_vmr"]).max() > 0
         assert np.asarray(f["rlutcsaf"]).max() > 0
         assert np.all(np.asarray(f["rsutaf"]) == Writer.FILL_VALUE)
@@ -227,9 +227,9 @@ def test_spectral_output(era5_file, ghg_file, tmp_path):
             assert f[name].shape == (T, Y, X, lw_grid.n), name
         # LW-only configuration: SW variables defined, never written
         # (the reference's fill-value behavior, era5.c:406-415).
-        from grtcode_tpu.utils.ncio import Writer
+        from grtcode_jax.utils.ncio import Writer
         assert np.all(np.asarray(f["rsutcsaf"]) == Writer.FILL_VALUE)
-        from grtcode_tpu.utils.interp import trapezoid_uniform
+        from grtcode_jax.utils.interp import trapezoid_uniform
         res_int = drv.run(atm, integrated=True)
         np.testing.assert_allclose(
             trapezoid_uniform(np.asarray(f["rlutcsaf"]), lw_grid.dw,

@@ -1,7 +1,7 @@
 """Fortran binding compile test (fortran-bindings/grtcode_fortran.F90).
 
 The reference ships `module grtcode` for GFDL climate models; this build's
-equivalent is native/grtcode_tpu.F90 over the C ABI.  gfortran compiles
+equivalent is native/grtcode_jax.F90 over the C ABI.  gfortran compiles
 the module and a small program exercising the public surface (constants +
 f_* interfaces); skipped when no Fortran compiler is installed (this
 container has none — the test runs in environments that do).
@@ -13,11 +13,11 @@ import subprocess
 import pytest
 
 ROOT = os.path.join(os.path.dirname(__file__), os.pardir)
-F90 = os.path.join(ROOT, "native", "grtcode_tpu.F90")
+F90 = os.path.join(ROOT, "native", "grtcode_jax.F90")
 
 PROGRAM = """
 program smoke
-use grtcode_tpu
+use grtcode_jax
 use, intrinsic :: iso_c_binding, only: c_double, c_int
 implicit none
 integer(kind=grt_handle_kind) :: grid
@@ -40,7 +40,7 @@ end program smoke
 def test_f90_module_compiles(tmp_path):
     mod = subprocess.run(
         ["gfortran", "-c", "-Wall", "-Werror", F90, "-J", str(tmp_path),
-         "-o", str(tmp_path / "grtcode_tpu.o")],
+         "-o", str(tmp_path / "grtcode_jax.o")],
         capture_output=True, text=True)
     assert mod.returncode == 0, mod.stderr
     src = tmp_path / "smoke.F90"

@@ -8,11 +8,11 @@ basic-circ-test.c:468-470) independent of gas optics.
 import numpy as np
 import pytest
 
-from grtcode_tpu.apps import circ
-from grtcode_tpu.framework import Atmosphere, RadiationDriver
-from grtcode_tpu.gas_optics.gas_optics import GasOptics
-from grtcode_tpu.gas_optics.hitran import synthetic_catalog
-from grtcode_tpu.spectral import SpectralGrid
+from grtcode_jax.apps import circ
+from grtcode_jax.framework import Atmosphere, RadiationDriver
+from grtcode_jax.gas_optics.gas_optics import GasOptics
+from grtcode_jax.gas_optics.hitran import synthetic_catalog
+from grtcode_jax.spectral import SpectralGrid
 
 SIGMA = 5.670374419e-8
 
@@ -196,7 +196,7 @@ def test_column_chunked_cloudy_preserves_realizations(driver, atm):
     the chunk origin."""
     import dataclasses
 
-    from grtcode_tpu.clouds.lib import CloudOpticsLib
+    from grtcode_jax.clouds.lib import CloudOpticsLib
     from tests.test_clouds import synthetic_pade_table
 
     B = 5
@@ -269,7 +269,7 @@ def test_day_compaction_under_mesh_and_spectral(driver, atm):
     reference; night SW is exactly zero, spectral included."""
     import dataclasses
 
-    from grtcode_tpu.parallel import make_mesh
+    from grtcode_jax.parallel import make_mesh
 
     B = 6
     # 4 lit / 2 night: the lit bucket (4) stays below the batch so

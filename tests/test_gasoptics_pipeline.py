@@ -13,10 +13,10 @@ import os
 import numpy as np
 import pytest
 
-from grtcode_tpu import constants
-from grtcode_tpu.gas_optics.gas_optics import GasOptics
-from grtcode_tpu.gas_optics.hitran import synthetic_catalog
-from grtcode_tpu.spectral import SpectralGrid
+from grtcode_jax import constants
+from grtcode_jax.gas_optics.gas_optics import GasOptics
+from grtcode_jax.gas_optics.hitran import synthetic_catalog
+from grtcode_jax.spectral import SpectralGrid
 
 HERE = os.path.dirname(__file__)
 NUM_LEVELS, NUM_LAYERS, NUM_LINES = 9, 8, 40

@@ -7,12 +7,12 @@ test_tips2017.c, test_cfcs.c patterns).
 import numpy as np
 import pytest
 
-from grtcode_tpu import constants
-from grtcode_tpu.gas_optics import molecules as mol_registry
-from grtcode_tpu.gas_optics import tips as tips_mod
-from grtcode_tpu.gas_optics.hitran import (LineCatalog, _iso_code,
+from grtcode_jax import constants
+from grtcode_jax.gas_optics import molecules as mol_registry
+from grtcode_jax.gas_optics import tips as tips_mod
+from grtcode_jax.gas_optics.hitran import (LineCatalog, _iso_code,
                                            parse_par_file, STRENGTH_SCALE)
-from grtcode_tpu.gas_optics.molecules import CfcId, CiaId, MoleculeId
+from grtcode_jax.gas_optics.molecules import CfcId, CiaId, MoleculeId
 
 
 def _record(mol, iso_ch, vnn, snn, yair, yself, en, n, d):
@@ -155,7 +155,7 @@ def test_packaged_tips_tables_cover_every_registry_isotopologue():
     (molecule, iso) pair in the registry must resolve through the
     tabulated path — no molecule in any pipeline silently hits the
     power-law fallback or the principal-iso substitution."""
-    from grtcode_tpu.gas_optics import molecules as mol_registry
+    from grtcode_jax.gas_optics import molecules as mol_registry
 
     tips = tips_mod.default_tips()
     assert isinstance(tips, tips_mod.TabulatedTips)
@@ -205,8 +205,8 @@ def test_tabulated_tips(tmp_path):
 def test_catalog_roundtrip_through_gas_optics(tmp_path):
     """A parsed .par catalog flows through the full optical-depth path."""
     import jax.numpy as jnp
-    from grtcode_tpu.gas_optics.gas_optics import GasOptics
-    from grtcode_tpu.spectral import SpectralGrid
+    from grtcode_jax.gas_optics.gas_optics import GasOptics
+    from grtcode_jax.spectral import SpectralGrid
 
     path = tmp_path / "h2o.par"
     rng = np.random.default_rng(3)
@@ -231,7 +231,7 @@ def test_catalog_roundtrip_through_gas_optics(tmp_path):
 def test_native_parser_matches_python(tmp_path):
     """The C++ record scanner (native/hitran_parser.cpp) produces the
     identical catalog to the pure-Python parser."""
-    from grtcode_tpu import native as native_mod
+    from grtcode_jax import native as native_mod
     if not native_mod.available(build_if_missing=True):
         pytest.skip("native hitran library not buildable here")
 
@@ -256,7 +256,7 @@ def test_native_parser_matches_python(tmp_path):
     cat_n = parse_par_file(str(path), 1, w0=200.0, wn=4500.0, tips=tips)
 
     # Force the pure-Python path for comparison.
-    import grtcode_tpu.native as nm
+    import grtcode_jax.native as nm
     orig = nm.parse_par_native
     nm.parse_par_native = lambda *a, **k: None
     try:

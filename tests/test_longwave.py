@@ -14,7 +14,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from grtcode_tpu.solvers.longwave import longwave_fluxes
+from grtcode_jax.solvers.longwave import longwave_fluxes, stream_sum
 
 HERE = os.path.dirname(__file__)
 
@@ -85,3 +85,19 @@ def test_lw_robustness(tau_val):
         jnp.ones((nw,), jnp.float32), jnp.asarray(w, jnp.float32))
     assert bool(jnp.all(jnp.isfinite(fu))) and bool(jnp.all(jnp.isfinite(fd)))
     assert bool(jnp.all(fu >= 0.0)) and bool(jnp.all(fd >= 0.0))
+
+
+@pytest.mark.parametrize("shape", [(4, 33), (7, 4, 33)])
+def test_stream_sum_matches_float64(shape):
+    """The pinned stream quadrature equals a float64 numpy sum to float32
+    rounding over six decades of intensity (a TF32 matmul would miss by
+    ~1e-3)."""
+    rng = np.random.default_rng(11)
+    x = 10.0 ** rng.uniform(-3.0, 3.0, shape)
+    c2 = np.array([0.1, 0.3, 0.4, 0.2]) * rng.uniform(0.5, 1.5, 4)
+    got = np.asarray(stream_sum(jnp.asarray(c2, jnp.float32),
+                                jnp.asarray(x, jnp.float32)))
+    want = np.einsum("j,...jw->...w", c2.astype(np.float32).astype(
+        np.float64), x.astype(np.float32).astype(np.float64))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=1e-6)

@@ -2,7 +2,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from grtcode_tpu import Optics, SpectralGrid, combine
+from grtcode_jax import Optics, SpectralGrid, combine
 
 
 def test_combine_weighted_sums():

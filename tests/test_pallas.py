@@ -1,39 +1,42 @@
-"""Pallas far-wing kernel == jnp tiled far-wing accumulation.
+"""Fused Voigt kernel (Pallas, Triton route) == jnp ground truth.
 
-Runs the Pallas kernel in interpreter mode on CPU against the jnp ground
-truth (accumulate_tiled with far_kernel=True), including spectral-block
-offsets and batched (rows = columns x layers) inputs.
+Runs the kernel in interpreter mode on CPU against the jnp ground truth
+(accumulate_tiled with far_kernel=True + accumulate_near_pointwise),
+including spectral-block offsets and batched (rows = columns x layers)
+inputs.  The compiled kernel is checked against the same ground truth on
+the GPU by ``chip_smoke.py``.
 """
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 
-from grtcode_tpu.spectral import SpectralGrid
-from grtcode_tpu.gas_optics import lines as lines_mod
-from grtcode_tpu.gas_optics import pallas_kernels as pk
-from grtcode_tpu.gas_optics.hitran import synthetic_catalog
-from grtcode_tpu.gas_optics.optical_depth import accumulate_tiled
-from grtcode_tpu.utils import curtis_godson as cg
-from grtcode_tpu import constants
+from grtcode_jax.spectral import SpectralGrid
+from grtcode_jax.gas_optics import lines as lines_mod
+from grtcode_jax.gas_optics import pallas_kernels as pk
+from grtcode_jax.gas_optics.gas_optics import GasOptics
+from grtcode_jax.gas_optics.hitran import synthetic_catalog
+from grtcode_jax.gas_optics.optical_depth import (accumulate_near_pointwise,
+                                                  accumulate_tiled)
+from grtcode_jax.utils import curtis_godson as cg
+from grtcode_jax import constants
 
 TILE = 32
-CH = 16
+
+
+def _catalog(rng, n, lo, hi, mol=1, dmax=0.02):
+    return synthetic_catalog(
+        mol, np.sort(rng.uniform(lo, hi, n)), rng.uniform(1e-22, 1e-19, n),
+        yair=rng.uniform(0.02, 0.1, n), yself=rng.uniform(0.05, 0.4, n),
+        en=rng.uniform(0.0, 2000.0, n), n=rng.uniform(0.4, 0.8, n),
+        d=rng.uniform(-dmax, dmax, n))
 
 
 @pytest.fixture(scope="module")
 def setup():
     grid = SpectralGrid(100.0, 180.0, 0.1)
-    n_lines = 120
     rng = np.random.default_rng(5)
-    vnn = np.sort(rng.uniform(90.0, 190.0, n_lines))
-    cat = synthetic_catalog(
-        1, vnn, rng.uniform(1e-22, 1e-19, n_lines),
-        yair=rng.uniform(0.02, 0.1, n_lines),
-        yself=rng.uniform(0.05, 0.4, n_lines),
-        en=rng.uniform(0.0, 2000.0, n_lines),
-        n=rng.uniform(0.4, 0.8, n_lines),
-        d=rng.uniform(-0.02, 0.02, n_lines))
-    bound = lines_mod.bind_to_grid(cat, grid)
+    bound = lines_mod.bind_to_grid(_catalog(rng, 120, 90.0, 190.0), grid)
 
     nlev = 7
     B = 3
@@ -49,7 +52,8 @@ def setup():
     psavg, ns = cg.partial_pressures_and_densities(
         p_atm, jnp.asarray(x, jnp.float32), n_air)
 
-    # Flatten (B, nlayers) -> rows.
+    # Flatten (B, nlayers) -> rows; 18 rows is not a multiple of the row
+    # block, so the padded rows are exercised everywhere.
     rows = B * (nlev - 1)
     prep = lines_mod.prepare(bound, grid, pavg.reshape(rows),
                              tavg.reshape(rows), psavg.reshape(rows))
@@ -70,17 +74,29 @@ def _jnp_far(grid, bound, prep, ns, fsteps, near, num_wpoints, start):
         exclude_within=near, far_kernel=True)
 
 
+def _jnp_full(grid, bound, prep, ns, fsteps, near, num_wpoints, start=0):
+    far = _jnp_far(grid, bound, prep, ns, fsteps, near, num_wpoints, start)
+    ranges = lines_mod.build_point_ranges(bound, grid.n, near,
+                                          shift_margin=2)
+    return accumulate_near_pointwise(
+        prep.center_idx, prep.center_frac, prep.strength, prep.lorentz,
+        prep.doppler, ns, jnp.asarray(ranges.lo), jnp.asarray(ranges.hi),
+        num_wpoints=num_wpoints, dw=float(grid.dw), near=near,
+        kpad=ranges.kpad, tau0=far, start=start, num_global=grid.n)
+
+
 def _pallas(grid, bound, prep, ns, fsteps, near, num_wpoints, start,
-            include_near, region0_hw=None):
+            include_near, region0_hw=None, tile=TILE, rblock=pk.RBLOCK):
     hw = near + 2
-    ranges = pk.build_chunk_ranges(
-        bound.c0, grid.n, fsteps, TILE, CH, shift_margin=2, near_hw=hw,
+    ranges = pk.build_line_ranges(
+        bound.c0, grid.n, fsteps, tile, shift_margin=2, near_hw=hw,
         region0_hw=region0_hw)
     return pk.accumulate_voigt_pallas(
         prep, bound.c0, ns, ranges,
         num_wpoints=num_wpoints, dw=float(grid.dw), fsteps=fsteps,
-        near=near, hw=hw, tile=TILE, ch=CH, num_global=grid.n,
-        start=start, include_near=include_near, interpret=True)
+        near=near, hw=hw, tile=tile, num_global=grid.n,
+        start=start, include_near=include_near, rblock=rblock,
+        interpret=True)
 
 
 def _pallas_far(grid, bound, prep, ns, fsteps, near, num_wpoints, start):
@@ -115,19 +131,10 @@ def test_pallas_far_blocks(setup):
 
 def test_pallas_fused_near_matches_jnp(setup):
     """Fused near+far kernel == tiled far pass + pointwise near pass."""
-    from grtcode_tpu.gas_optics.optical_depth import \
-        accumulate_near_pointwise
-
     grid, bound, prep, ns, fsteps, near = setup
     nw = -(-grid.n // TILE) * TILE
     far = _jnp_far(grid, bound, prep, ns, fsteps, near, nw, 0)
-    ranges = lines_mod.build_point_ranges(bound, grid.n, near,
-                                          shift_margin=2)
-    ref = accumulate_near_pointwise(
-        prep.center_idx, prep.center_frac, prep.strength, prep.lorentz,
-        prep.doppler, ns, jnp.asarray(ranges.lo), jnp.asarray(ranges.hi),
-        num_wpoints=nw, dw=float(grid.dw), near=near, kpad=ranges.kpad,
-        tau0=far, start=0, num_global=grid.n)
+    ref = _jnp_full(grid, bound, prep, ns, fsteps, near, nw)
     got = np.asarray(_pallas(grid, bound, prep, ns, fsteps, near, nw, 0,
                              include_near=True))
     np.testing.assert_allclose(got, np.asarray(ref), rtol=3e-6, atol=1e-12)
@@ -154,11 +161,11 @@ def test_pallas_fused_blocks(setup):
 
 def test_zone_split_bit_identical(setup):
     """The three-zone far-wing specialization (interior pure-region-0 /
-    edge / core-adjacent) computes the same arithmetic as the
-    single-path kernel: it only skips selects whose outcome is
-    host-provably constant.  Tolerance is a couple of f32 ulps, NOT the
-    kernel-parity 2e-6: XLA's FMA contraction may differ between the two
-    expression graphs (observed <= 2 ulps on CPU; identical on TPU)."""
+    edge / core-adjacent) computes the same arithmetic as the all-core
+    kernel: it only skips selects whose outcome is host-provably
+    constant.  Tolerance is a couple of f32 ulps, not the kernel-parity
+    2e-6: the compiler may contract multiply-adds differently in the two
+    expression graphs."""
     grid, bound, prep, ns, fsteps, near = setup
     nw = -(-grid.n // TILE) * TILE
     base = np.asarray(_pallas(grid, bound, prep, ns, fsteps, near, nw, 0,
@@ -171,62 +178,36 @@ def test_zone_split_bit_identical(setup):
 
     # With fsteps=30 and TILE=32 the interior zone is legitimately empty
     # (the window never fully covers a tile beyond the core reach), so
-    # ALSO exercise the kernel's interior fast path: small tiles + a
-    # line catalog dense enough that whole ch-chunks fall inside the
-    # interior span (as in production: tile=64 vs fsteps=250 with ~30
-    # HITRAN lines per cm-1).
+    # also exercise the interior fast path: small tiles and a catalog
+    # dense enough that many lines fall inside the interior span (as in
+    # production: tile=64 vs fsteps=250 with ~30 lines per cm-1).
     rng = np.random.default_rng(17)
-    nd = 1200
-    dcat = synthetic_catalog(
-        1, np.sort(rng.uniform(grid.w0, grid.last, nd)),
-        rng.uniform(1e-22, 1e-19, nd),
-        yair=rng.uniform(0.02, 0.1, nd), yself=rng.uniform(0.05, 0.4, nd),
-        en=rng.uniform(0.0, 2000.0, nd), n=rng.uniform(0.4, 0.8, nd),
-        d=rng.uniform(-0.02, 0.02, nd))
-    dbound = lines_mod.bind_to_grid(dcat, grid)
+    dbound = lines_mod.bind_to_grid(
+        _catalog(rng, 1200, grid.w0, grid.last), grid)
     nrows = prep.strength.shape[0]
     dprep = lines_mod.prepare(
         dbound, grid,
         np.full(nrows, 0.5, np.float32), np.full(nrows, 260.0, np.float32),
         np.full(nrows, 0.005, np.float32))
-    hw = near + 2
     nw8 = -(-grid.n // 8) * 8
-
-    def small_tile(r0):
-        ranges = pk.build_chunk_ranges(dbound.c0, grid.n, fsteps, 8, 8,
-                                       shift_margin=2, near_hw=hw,
-                                       region0_hw=r0)
-        out = pk.accumulate_voigt_pallas(
-            dprep, dbound.c0, ns, ranges, num_wpoints=nw8,
-            dw=float(grid.dw), fsteps=fsteps, near=near, hw=hw, tile=8,
-            ch=8, num_global=grid.n, start=0, include_near=True,
-            interpret=True)
-        return ranges, np.asarray(out)
-
-    ranges, zoned8 = small_tile(8)
-    assert int(np.sum((ranges.flh - ranges.fll)
-                      + (ranges.frh - ranges.frl))) > 0
-    _, base8 = small_tile(None)
+    zone_lines = pk.build_line_ranges(dbound.c0, grid.n, fsteps, 8,
+                                      shift_margin=2, near_hw=near + 2,
+                                      region0_hw=8).table
+    assert int(np.sum((zone_lines[pk.T_B] - zone_lines[pk.T_A])
+                      + (zone_lines[pk.T_F] - zone_lines[pk.T_E]))) > 0
+    zoned8, base8 = (np.asarray(_pallas(
+        grid, dbound, dprep, ns, fsteps, near, nw8, 0, include_near=True,
+        region0_hw=r0, tile=8)) for r0 in (8, None))
     np.testing.assert_allclose(zoned8, base8, rtol=6e-7, atol=1e-12)
 
 
 def test_gas_optics_batched_matches_single():
     """Batched (B, nlev) optical_depth == per-column calls; and the full
-    tiled+near pipeline with the Pallas far kernel (interpret mode)
-    == the jnp tiled path."""
-    from grtcode_tpu.gas_optics.gas_optics import GasOptics
-
+    tiled+near pipeline with the fused kernel (interpret mode) == the jnp
+    tiled path."""
     grid = SpectralGrid(100.0, 160.0, 0.1)
     rng = np.random.default_rng(9)
-    n_lines = 60
-    vnn = np.sort(rng.uniform(95.0, 165.0, n_lines))
-    cat = synthetic_catalog(
-        1, vnn, rng.uniform(1e-22, 1e-19, n_lines),
-        yair=rng.uniform(0.02, 0.1, n_lines),
-        yself=rng.uniform(0.05, 0.4, n_lines),
-        en=rng.uniform(0.0, 2000.0, n_lines),
-        n=rng.uniform(0.4, 0.8, n_lines),
-        d=rng.uniform(-0.02, 0.02, n_lines))
+    cat = _catalog(rng, 60, 95.0, 165.0)
 
     nlev, B = 6, 3
     p = np.linspace(0.01, 1013.0, nlev)[None, :] * np.ones((B, 1))
@@ -253,70 +234,98 @@ def test_gas_optics_batched_matches_single():
     assert np.abs(np.asarray(tau_jnp)).max() > 0
 
 
-@pytest.mark.parametrize("layout", ["points"])
-def test_transposed_far_layout_matches_jnp(setup, layout):
-    """The transposed 'points' far-wing layout (production-reachable via
-    $GRTCODE_TPU_FAR_LAYOUT) reproduces the jnp ground truth on the full
-    grid and on a spectral block, with the three-zone classification on
-    — the default 'lines' layout is covered by every other test."""
+@pytest.mark.parametrize("rblock", [8, 16])
+def test_rows_not_multiple_of_row_block(setup, rblock):
+    """18 rows over row blocks of 8 and 16: the padded rows of the last
+    block are inert and sliced away."""
     grid, bound, prep, ns, fsteps, near = setup
-    hw = near + 2
-    r0 = lines_mod.region0_halfwidth(bound, grid.dw)
-    ranges = pk.build_chunk_ranges(
-        bound.c0, grid.n, fsteps, TILE, CH, shift_margin=2, near_hw=hw,
-        region0_hw=r0)
     nw = -(-grid.n // TILE) * TILE
-    ref = np.asarray(_pallas(grid, bound, prep, ns, fsteps, near, nw, 0,
-                             include_near=True, region0_hw=r0))
-    for start, size in ((0, nw), (2 * TILE, 4 * TILE)):
-        got = np.asarray(pk.accumulate_voigt_pallas(
-            prep, bound.c0, ns, ranges,
-            num_wpoints=size, dw=float(grid.dw), fsteps=fsteps,
-            near=near, hw=hw, tile=TILE, ch=CH, num_global=grid.n,
-            start=start, interpret=True, far_layout=layout))
-        np.testing.assert_allclose(
-            got, ref[:, start:start + size], rtol=3e-6, atol=1e-12)
-    assert np.abs(ref).max() > 0
+    ref = np.asarray(_jnp_full(grid, bound, prep, ns, fsteps, near, nw))
+    got = np.asarray(_pallas(grid, bound, prep, ns, fsteps, near, nw, 0,
+                             include_near=True, rblock=rblock))
+    assert got.shape == ref.shape == (18, nw)
+    np.testing.assert_allclose(got, ref, rtol=3e-6, atol=1e-12)
 
 
-def test_shared_near_hw_identical():
-    """shared_near_hw=True (pad every molecule's near-core half-width to
-    the band max -> ONE kernel signature, the fast-lowering mode) must be
-    value-identical: hw only sizes the unrolled offset window, the
-    |g - cidx| <= near mask decides membership."""
-    import numpy as np
+def test_tiles_past_grid_end_are_zero(setup):
+    """A block that runs past the grid end: its tiles beyond the last
+    real tile get empty line ranges and stay exactly zero, and the last
+    real tile equals the matching slice of the full-grid result."""
+    grid, bound, prep, ns, fsteps, near = setup
+    ntiles = -(-grid.n // TILE)
+    block = 4 * TILE
+    start = (ntiles - 1) * TILE          # last real tile, then 3 past it
+    got = np.asarray(_pallas(grid, bound, prep, ns, fsteps, near, block,
+                             start, include_near=True))
+    full = np.asarray(_pallas(grid, bound, prep, ns, fsteps, near,
+                              ntiles * TILE, 0, include_near=True))
+    assert got.shape == (prep.strength.shape[0], block)
+    assert np.all(got[:, TILE:] == 0.0)
+    np.testing.assert_allclose(got[:, :TILE], full[:, start:], rtol=2e-6,
+                               atol=1e-12)
+    assert np.abs(got[:, :TILE]).max() > 0
 
-    from grtcode_tpu.gas_optics.gas_optics import GasOptics
-    from grtcode_tpu.gas_optics.hitran import synthetic_catalog
 
-    # Fine grid + high wavenumbers: the near-core half-width (in grid
-    # points) then genuinely differs between light and heavy molecules.
-    grid = SpectralGrid(2000.0, 2060.0, 0.01)
+def test_catalog_shorter_than_one_chunk():
+    """A 5-line catalog padded to a 64-line chunk through GasOptics: the
+    sentinel lines never enter a tile range and the kernel matches jnp."""
+    grid = SpectralGrid(500.0, 540.0, 0.1)
+    rng = np.random.default_rng(3)
+    cat = _catalog(rng, 5, 505.0, 535.0)
+    p = jnp.linspace(1.0, 1000.0, 5)
+    t = jnp.linspace(220.0, 290.0, 5)
+    vmr = {1: jnp.full((5,), 3e-3)}
+    taus = []
+    for mode in ("off", "interpret"):
+        gas = GasOptics(grid, line_chunk=64, pallas=mode)
+        gas.add_catalog(cat)
+        assert gas.molecules[1].num_lines == 64
+        taus.append(np.asarray(gas.optical_depth(p, t, vmr)))
+    np.testing.assert_allclose(taus[1], taus[0], rtol=2e-6, atol=1e-12)
+    assert taus[0].max() > 0
 
-    def cat(mol, seed):
-        rng = np.random.default_rng(seed)   # fresh: identical catalogs
-        L = 90                              # for both GasOptics builds
-        vnn = np.sort(rng.uniform(1995.0, 2065.0, L))
-        return synthetic_catalog(
-            mol, vnn, rng.uniform(1e-22, 1e-19, L),
-            yair=rng.uniform(0.02, 0.1, L),
-            yself=rng.uniform(0.05, 0.4, L),
-            en=rng.uniform(0.0, 2000.0, L), n=rng.uniform(0.4, 0.8, L),
-            d=rng.uniform(-0.01, 0.01, L))
 
-    nlev = 6
-    p = np.linspace(1.0, 1000.0, nlev).astype(np.float32)
-    t = np.linspace(220.0, 290.0, nlev).astype(np.float32)
-    # Two molecules with different masses -> different near-core hw.
-    vmr = {1: np.full(nlev, 3e-3, np.float32),
-           2: np.full(nlev, 4e-4, np.float32)}
-    outs = {}
-    for shared in (False, True):
-        gas = GasOptics(grid, line_chunk=64, pallas="interpret",
-                        shared_near_hw=shared)
-        gas.add_catalog(cat(1, 0))
-        gas.add_catalog(cat(2, 1))
-        if shared:
-            assert len(set(gas.near_hw.values())) > 1  # genuinely pads
-        outs[shared] = np.asarray(gas.optical_depth(p, t, vmr))
-    np.testing.assert_array_equal(outs[True], outs[False])
+def test_line_ranges_partition_reaching_lines(setup):
+    """The seven zone segments of every tile are ordered and cover exactly
+    the lines that reach it; the near-core range sits inside them."""
+    grid, bound, _, _, fsteps, near = setup
+    for r0 in (None, 8, 20):
+        tab = pk.build_line_ranges(bound.c0, grid.n, fsteps, TILE,
+                                   shift_margin=2, near_hw=near + 2,
+                                   region0_hw=r0).table.astype(np.int64)
+        seg = tab[[pk.T_LO, pk.T_A, pk.T_B, pk.T_C, pk.T_D, pk.T_E, pk.T_F,
+                   pk.T_HI]]
+        assert (np.diff(seg, axis=0) >= 0).all()
+        assert (tab[pk.T_NL] >= tab[pk.T_LO]).all()
+        assert (tab[pk.T_NH] <= tab[pk.T_HI]).all()
+        assert (tab[pk.T_NL] <= tab[pk.T_NH]).all()
+
+
+@pytest.mark.parametrize("mode,backend,want", [
+    ("auto", "cpu", False), ("auto", "gpu", True), ("off", "gpu", False),
+    ("interpret", "cpu", True), ("on", "gpu", True), ("on", "cpu", None)])
+def test_backend_choice(monkeypatch, mode, backend, want):
+    """'auto' takes the kernel on a GPU and jnp on the CPU; 'on' without
+    a GPU raises instead of falling back."""
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    gas = GasOptics(SpectralGrid(100.0, 110.0, 0.1), pallas=mode)
+    if want is None:
+        with pytest.raises(ValueError, match="needs a GPU"):
+            gas._use_kernel()
+    else:
+        assert gas._use_kernel() is want
+
+
+@pytest.mark.parametrize("kw", [
+    dict(pallas="fast"), dict(pallas="on", method="wavenumber_sweep"),
+    dict(tile=48)])
+def test_gas_optics_rejects_bad_kernel_options(kw):
+    with pytest.raises(ValueError):
+        GasOptics(SpectralGrid(100.0, 110.0, 0.1), **kw)
+
+
+def test_bin_methods_never_take_the_kernel(monkeypatch):
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    gas = GasOptics(SpectralGrid(100.0, 110.0, 0.1),
+                    method="wavenumber_sweep")
+    assert gas._use_kernel() is False

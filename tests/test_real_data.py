@@ -87,8 +87,8 @@ def _cfc_args(d, names):
 def test_circ_case1_per_level_fluxes(tmp_path):
     """CIRC case 1 with real HITRAN lines: per-level rlu/rld/rsu/rsd
     within 1% of the reference build's goldens (test_circ:6-17 flags)."""
-    from grtcode_tpu.apps import circ
-    from grtcode_tpu.utils import ncio
+    from grtcode_jax.apps import circ
+    from grtcode_jax.utils import ncio
 
     d = DATA
     out = str(tmp_path / "output.circ-case1.nc")
@@ -115,7 +115,7 @@ def test_circ_case1_integrated_vs_lblrtm():
     line-by-line references the reference prints next to its own output
     (basic-circ-test.c:444-501) — within 2% (the reference's own values
     sit ~1% from LBLRTM)."""
-    from grtcode_tpu.apps import circ
+    from grtcode_jax.apps import circ
 
     d = DATA
     argv = [os.path.join(d, "HITRAN_files", "hitran2016.par"),
@@ -137,8 +137,8 @@ def test_circ_case1_integrated_vs_lblrtm():
 def test_rfmip_site0_per_level_fluxes(tmp_path):
     """RFMIP-IRF site 0, forcing index 1, real inputs: per-level fluxes
     within 1% of the reference goldens (test_rfmip_irf first block)."""
-    from grtcode_tpu.apps import rfmip
-    from grtcode_tpu.utils import ncio
+    from grtcode_jax.apps import rfmip
+    from grtcode_jax.utils import ncio
 
     d = DATA
     out = str(tmp_path / "output.forcing_index1.nc")
@@ -176,12 +176,12 @@ def test_register_cross_sections_wires_both_bands(tmp_path):
     exercise with real files."""
     import argparse
 
-    from grtcode_tpu.apps.rfmip import CIA_PAIRS
-    from grtcode_tpu.framework import cli
-    from grtcode_tpu.framework.driver import RadiationDriver
-    from grtcode_tpu.gas_optics.gas_optics import GasOptics
-    from grtcode_tpu.gas_optics.molecules import CfcId
-    from grtcode_tpu.spectral import SpectralGrid
+    from grtcode_jax.apps.rfmip import CIA_PAIRS
+    from grtcode_jax.framework import cli
+    from grtcode_jax.framework.driver import RadiationDriver
+    from grtcode_jax.gas_optics.gas_optics import GasOptics
+    from grtcode_jax.gas_optics.molecules import CfcId
+    from grtcode_jax.spectral import SpectralGrid
 
     def csv(name, w0=50.0, w1=5000.0, val=1e-20):
         p = tmp_path / name

@@ -11,9 +11,9 @@ import h5py
 import numpy as np
 import pytest
 
-from grtcode_tpu.apps import rfmip, circ
-from grtcode_tpu.gas_optics.molecules import CfcId, CiaId, MoleculeId
-from grtcode_tpu.spectral import SpectralGrid
+from grtcode_jax.apps import rfmip, circ
+from grtcode_jax.gas_optics.molecules import CfcId, CiaId, MoleculeId
+from grtcode_jax.spectral import SpectralGrid
 
 NSITE, NLAYER, NEXPT = 5, 10, 3
 NLEVEL = NLAYER + 1
@@ -153,7 +153,7 @@ def test_spectral_output(input_file, tmp_path):
         assert f["rsdcsaf_level"].shape == (NSITE, sw_grid.n)
         # The spectral variable trapezoid-integrates to the integrated
         # variable (output_fluxes, driver.c:306-312).
-        from grtcode_tpu.utils.interp import trapezoid_uniform
+        from grtcode_jax.utils.interp import trapezoid_uniform
         spec = np.asarray(f["rlutcsaf"])
         res_int = drv.run(atm, integrated=True)
         np.testing.assert_allclose(

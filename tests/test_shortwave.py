@@ -15,7 +15,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from grtcode_tpu.solvers.shortwave import shortwave_fluxes
+from grtcode_jax.solvers.shortwave import shortwave_fluxes
 
 HERE = os.path.dirname(__file__)
 

@@ -3,7 +3,7 @@ utilities/test/test_spectral_grid.c)."""
 import numpy as np
 import pytest
 
-from grtcode_tpu import SpectralGrid
+from grtcode_jax import SpectralGrid
 
 
 def test_point_count_matches_reference_rule():

@@ -1,7 +1,7 @@
 """Tile-gather accumulation == scatter-add accumulation.
 
 The tiled method (lines.build_tiles + optical_depth.accumulate_tiled) is
-the TPU production path; the scatter path (accumulate_line_sample) is the
+the jnp production path; the scatter path (accumulate_line_sample) is the
 portable ground truth.  Both must produce identical tau, including with
 spectral-block offsets (sharding) and pressure-shifted centers.
 """
@@ -9,9 +9,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from grtcode_tpu.spectral import SpectralGrid
-from grtcode_tpu.gas_optics.gas_optics import GasOptics
-from grtcode_tpu.gas_optics.hitran import synthetic_catalog
+from grtcode_jax.spectral import SpectralGrid
+from grtcode_jax.gas_optics.gas_optics import GasOptics
+from grtcode_jax.gas_optics.hitran import synthetic_catalog
 
 
 def _gas(method, n_lines=300, seed=3):

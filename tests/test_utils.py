@@ -3,13 +3,13 @@
 import numpy as np
 import jax.numpy as jnp
 
-from grtcode_tpu import constants
-from grtcode_tpu.utils.curtis_godson import (
+from grtcode_jax import constants
+from grtcode_jax.utils.curtis_godson import (
     layer_pressures_temperatures,
     number_densities,
     partial_pressures_and_densities,
 )
-from grtcode_tpu.utils.interp import (
+from grtcode_jax.utils.interp import (
     angstrom_exponent_sample,
     interpolate_piecewise,
     trapezoid_integral,

@@ -12,7 +12,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from grtcode_tpu.gas_optics.voigt import voigt_line_shape
+from grtcode_jax.gas_optics.voigt import voigt_line_shape
 
 HERE = os.path.dirname(__file__)
 

@@ -1,6 +1,6 @@
 """Merge per-segment ERA5 flux files along the lon dimension.
 
-TPU-native replacement for the reference's post-hoc combiners
+Replacement for the reference's post-hoc combiners
 (era5/test/combine-segments.py:8-36, extra-tools/grtcode-results-combiner.c):
 each shard writes its lon slice with `lon_start/lon_stop/lon_global_size`
 global attributes (era5.c:156-159) and this tool assembles the global

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Build TIPS-2017 partition-function tables (.npz) for grtcode_tpu.
+"""Build TIPS-2017 partition-function tables (.npz) for grtcode_jax.
 
 The reference's ``tips2017.c`` is a stripped large data blob
 (gas-optics/src/tips2017.h:29-37 is the surviving contract: a
@@ -10,7 +10,7 @@ must be (re)built.  Three subcommands:
             two-column ``T Q`` text files, named ``q<N>.txt`` following the
             HITRAN global isotopologue numbering, or explicit
             ``--file MOL ISO PATH`` triples) and write the npz schema
-            :class:`grtcode_tpu.gas_optics.tips.TabulatedTips` loads.
+            :class:`grtcode_jax.gas_optics.tips.TabulatedTips` loads.
             Use this when you have the real Gamache et al. (2017) data.
 
   generate  Synthesize tables *offline* (this container has no network
@@ -229,7 +229,7 @@ def generate_tables(tgrid: np.ndarray) -> dict:
     molparam Q(296) inherit the principal value (the absolute
     normalization cancels in line strengths; only the shared T-shape
     survives)."""
-    from grtcode_tpu.gas_optics import molecules as mol_registry
+    from grtcode_jax.gas_optics import molecules as mol_registry
 
     out = {"T": tgrid.astype(np.float64)}
     for mol in mol_registry.REGISTRY.values():
@@ -272,7 +272,7 @@ def cmd_generate(args) -> None:
 
 def cmd_convert(args) -> None:
     """Convert public TIPS-2017 two-column text files to the npz schema."""
-    from grtcode_tpu.gas_optics.molecules import GLOBAL_ISO_IDS
+    from grtcode_jax.gas_optics.molecules import GLOBAL_ISO_IDS
 
     entries = []  # (mol_id, iso, path)
     for mol, iso, path in args.file or []:
@@ -308,7 +308,7 @@ def cmd_emit_c(args) -> None:
     with open(args.output, "w") as f:
         f.write("/* Generated by tools/convert_tips.py emit-c — TIPS "
                 "tables + linear-interp Q()\n * for the golden harnesses. "
-                "Matches grtcode_tpu.gas_optics.tips.TabulatedTips. */\n")
+                "Matches grtcode_jax.gas_optics.tips.TabulatedTips. */\n")
         f.write("#include <math.h>\n\n")
         f.write(f"#define TIPS_NT {len(tgrid)}\n")
         f.write(f"static const double tips_t0 = {float(tgrid[0])!r};\n")
@@ -378,20 +378,20 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
     g = sub.add_parser("generate", help="synthesize tables offline")
-    g.add_argument("-o", "--output", default="grtcode_tpu/data/tips2017.npz")
+    g.add_argument("-o", "--output", default="grtcode_jax/data/tips2017.npz")
     g.add_argument("--tmin", type=float, default=60.0)
     g.add_argument("--tmax", type=float, default=500.0)
     g.add_argument("--step", type=float, default=1.0)
     g.set_defaults(fn=cmd_generate)
     c = sub.add_parser("convert", help="convert public TIPS-2017 data files")
-    c.add_argument("-o", "--output", default="grtcode_tpu/data/tips2017.npz")
+    c.add_argument("-o", "--output", default="grtcode_jax/data/tips2017.npz")
     c.add_argument("--qdir", help="directory of TIPS-2017 q<N>.txt files")
     c.add_argument("--file", nargs=3, action="append",
                    metavar=("MOL", "ISO", "PATH"),
                    help="explicit mol_id iso path triple (repeatable)")
     c.set_defaults(fn=cmd_convert)
     e = sub.add_parser("emit-c", help="emit C header for golden harnesses")
-    e.add_argument("--table", default="grtcode_tpu/data/tips2017.npz")
+    e.add_argument("--table", default="grtcode_jax/data/tips2017.npz")
     e.add_argument("-o", "--output", default="tools/goldens/tips_table.h")
     e.set_defaults(fn=cmd_emit_c)
     args = ap.parse_args()

@@ -1,13 +1,13 @@
 """Simulated multi-host dryrun: 2 CPU processes x 4 virtual devices.
 
-Validates the production multi-host flow (grtcode_tpu/parallel/
+Validates the production multi-host flow (grtcode_jax/parallel/
 distributed.py) without pod hardware: an orchestrator spawns two worker
 processes that join one jax.distributed process group, each builds a
 (2 columns x 2 spectral) mesh over its *local* devices, computes its
 column slice of the flagship two-band step, and writes a combinable
 segment + done-marker.  The orchestrator then merges the segments and
 compares byte-identically against the same step on a single-process
-(4 x 2) mesh — the TPU analogue of the reference's SLURM-sharded run
+(4 x 2) mesh — the analogue of the reference's SLURM-sharded run
 vs single-node run producing identical netCDF contents
 (GRTworkflow/run-rfmip-irf.sh:102-125 + combiner).
 
@@ -47,13 +47,13 @@ def build_driver_case(B: int = BATCH_COLUMNS):
     import numpy as np
 
     sys.path.insert(0, REPO_ROOT)
-    from grtcode_tpu.clouds.lib import CloudOpticsLib
-    from grtcode_tpu.clouds.pade import synthetic_pade_table
-    from grtcode_tpu.framework import Atmosphere, RadiationDriver
-    from grtcode_tpu.gas_optics.gas_optics import GasOptics
-    from grtcode_tpu.gas_optics.hitran import synthetic_catalog
-    from grtcode_tpu.solvers.solar_flux import SolarFlux
-    from grtcode_tpu.spectral import SpectralGrid
+    from grtcode_jax.clouds.lib import CloudOpticsLib
+    from grtcode_jax.clouds.pade import synthetic_pade_table
+    from grtcode_jax.framework import Atmosphere, RadiationDriver
+    from grtcode_jax.gas_optics.gas_optics import GasOptics
+    from grtcode_jax.gas_optics.hitran import synthetic_catalog
+    from grtcode_jax.solvers.solar_flux import SolarFlux
+    from grtcode_jax.spectral import SpectralGrid
 
     lw_grid = SpectralGrid(100.0, 150.0, 0.2)
     sw_grid = SpectralGrid(2000.0, 20000.0, 10.0)
@@ -113,7 +113,7 @@ def run_worker(process_id: int, num_processes: int, coordinator: str,
 
     jax.config.update("jax_platforms", "cpu")
     sys.path.insert(0, REPO_ROOT)
-    from grtcode_tpu.parallel import distributed
+    from grtcode_jax.parallel import distributed
 
     distributed.initialize(coordinator_address=coordinator,
                            num_processes=num_processes,
@@ -161,8 +161,8 @@ def orchestrate(out_dir: str, timeout: float = 600.0) -> None:
                 f"distributed worker {pid} failed:\n{out[-4000:]}")
 
     sys.path.insert(0, REPO_ROOT)
-    from grtcode_tpu.parallel import distributed
-    from grtcode_tpu.parallel.mesh import make_mesh
+    from grtcode_jax.parallel import distributed
+    from grtcode_jax.parallel.mesh import make_mesh
     import jax
 
     # Reference: the same steps on this process's own devices (the driver

@@ -5,7 +5,7 @@
  * (launch.c:135-218 dispatch; kernels.c:177-406, 514-581).
  *
  * Same synthetic column/line list as gasoptics_harness.c but with d = 0
- * (no pressure shift) so the TPU build's host-side bracketing on unshifted
+ * (no pressure shift) so this build's host-side bracketing on unshifted
  * centers is index-exact against the reference's device-side bracketing on
  * shifted centers.
  *

@@ -7,7 +7,7 @@
  * delta-Eddington/adding solvers -> per-level trapezoid-integrated fluxes
  * (output_fluxes, driver.c:295-312).  Q() comes from the shared generated
  * TIPS table (tools/convert_tips.py emit-c), so the reference stack and
- * grtcode_tpu use identical partition functions.
+ * grtcode_jax use identical partition functions.
  *
  * Inputs: a directory produced by tools/goldens/driver_inputs.py.
  * Output: "nlev <N>" then four labeled blocks (rlu rld rsu rsd), one

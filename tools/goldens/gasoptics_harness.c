@@ -8,7 +8,7 @@
  * including the parse-time strength renormalization
  * (parse_HITRAN_file.c:372-384).  tips2017.c is a stripped blob in the
  * reference checkout, so Q() is stubbed below with the same power-law
- * model the TPU build's PowerLawTips fallback uses — both sides then share
+ * model this build's PowerLawTips fallback uses — both sides then share
  * identical partition functions and the harness pins everything else.
  *
  * Output: tau values, "%.9e" one per line, layers-major.

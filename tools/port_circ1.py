@@ -3,7 +3,7 @@
 The header embeds the public NASA CIRC benchmark case-1 inputs (atmospheric
 profiles, gas abundances, spectral surface albedo, TOA solar function,
 aerosol and cloud columns) as C array literals; this extracts the *data*
-into grtcode_tpu/data/circ1.npz for the TPU build's CIRC driver and
+into grtcode_jax/data/circ1.npz for this build's CIRC driver and
 regression tests (mirrors basic-circ-test.c's use of the same arrays).
 
 Usage: python tools/port_circ1.py [path-to-circ1.h]
@@ -15,7 +15,7 @@ import os
 import numpy as np
 
 DEFAULT_SRC = "/root/reference/circ/src/circ1.h"
-OUT = os.path.join(os.path.dirname(__file__), "..", "grtcode_tpu", "data",
+OUT = os.path.join(os.path.dirname(__file__), "..", "grtcode_jax", "data",
                    "circ1.npz")
 
 

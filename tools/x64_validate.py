@@ -7,7 +7,7 @@ This tool backs the remaining precision claim with an actual
 ``jax_enable_x64`` run: the LW and SW solvers execute in float64 on the
 same cases the compiled f64 reference harnesses dumped
 (tools/goldens/lw_harness.c / sw_harness.c) and must agree to ~1e-9 —
-the goldens' own print precision (%.9e) — i.e. the TPU-reformulated
+the goldens' own print precision (%.9e) — i.e. the reformulated
 solvers (scan/einsum LW, overflow-free Meador-Weaver SW) are
 algebraically exact against the reference, not merely f32-close.
 
@@ -36,8 +36,8 @@ def main() -> int:
     import jax.numpy as jnp
     import numpy as np
 
-    from grtcode_tpu.solvers.longwave import longwave_fluxes
-    from grtcode_tpu.solvers.shortwave import shortwave_fluxes
+    from grtcode_jax.solvers.longwave import longwave_fluxes
+    from grtcode_jax.solvers.shortwave import shortwave_fluxes
     import test_longwave as tlw
     import test_shortwave as tsw
 
