@@ -10,7 +10,8 @@ layers, B=32 columns, clear sky, integrated fluxes):
   2. kernel parity: the compiled fused Voigt kernel against the jnp ground
      truth (accumulate_tiled + accumulate_near_pointwise) on the largest LW
      molecule (120k lines) x 1,728 rows, over the full grid and three
-     spectral blocks (bound: PARITY_RTOL);
+     spectral blocks (bound: PARITY_RTOL), then both against a float64
+     sum at the points where they differ most (bound: F64_RTOL);
   3. goldens: the three-tier driver golden and the LW/SW solver goldens at
      their tests' tolerances, and three physics invariants;
   4. main path: RadiationDriver.run unstreamed and with spectral_chunks=4
@@ -44,13 +45,19 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# Kernel vs jnp ground truth.  The float32 Humlicek near core (regions
-# 2-4 at top-layer line centers) carries ~1e-5 rounding error in both
-# paths on an H100: against a float64 evaluation of the same formulas the
-# kernel was off by up to 1.35e-5 and the jnp path by up to 2.0e-5, and
-# the two differed by 2.3e-5 (far wings alone: 6.7e-6).  The 2e-6 bound
-# the interpreted kernel meets on the CPU is out of reach there.
-PARITY_RTOL = 5e-5
+# Kernel vs jnp ground truth on an H100.  Both float32 paths carry up to
+# ~2e-5 rounding error in the Humlicek near core (regions 2-4 near
+# top-layer line centres): at the worst points the kernel was up to
+# 1.5e-5 and the jnp path up to 2.0e-5 from a float64 sum, with
+# different signs, so the two differ by up to 2.3e-5.  IEEE division
+# (div.rn.f32 instead of Triton's div.full.f32) did not narrow this, so
+# the 2e-6 bound the interpreted kernel meets on the CPU is out of reach
+# on the card.  PARITY_RTOL bounds the gap between the paths;
+# F64_RTOL bounds the kernel's own error at the worst points, no looser
+# than the jnp path's.
+PARITY_RTOL = 3e-5
+F64_RTOL = 2e-5
+F64_POINTS = 8
 # Denominator floor of the relative difference (tau below it compares
 # absolutely): 1e-12 / 2e-6, the floor of the original 2e-6 check.
 PARITY_FLOOR = 5e-7
@@ -168,6 +175,36 @@ def line_prep(gas, mol, batch):
     return arrays, ns
 
 
+def float64_tau(gas, mol, prep, ns, points):
+    """Optical depth of molecule ``mol`` at (row, grid point) pairs, summed
+    in float64 from the same prepared lines with the ground truth's line
+    shapes: the far-wing form beyond the near core, the full Voigt within
+    it."""
+    import jax
+    import jax.numpy as jnp
+
+    from grtcode_jax.gas_optics.hitran import STRENGTH_SCALE
+    from grtcode_jax.gas_optics.voigt import voigt_far_wing, voigt_line_shape
+
+    cidx, cfrac, s, lor, dop = (np.asarray(a) for a in prep)
+    rows = np.array([r for r, _ in points])
+    delta = (np.array([g for _, g in points])[:, None]
+             - cidx[rows].astype(np.int64))                # (points, L)
+    ok = ((cidx[rows] >= 0) & (cidx[rows] < gas.grid.n)
+          & (np.abs(delta) <= gas._fsteps))
+    dw = float(np.float32(gas.grid.dw))
+    with jax.enable_x64(True):
+        args = (jnp.asarray((delta - cfrac[rows].astype(np.float64)) * dw),
+                jnp.asarray(lor[rows], jnp.float64),
+                jnp.asarray(dop[rows], jnp.float64))
+        k = np.where(np.abs(delta) <= gas.near_steps[mol],
+                     np.asarray(voigt_line_shape(*args)),
+                     np.asarray(voigt_far_wing(*args)))
+    nss = (np.asarray(ns)[rows].astype(np.float32)
+           / np.float32(STRENGTH_SCALE)).astype(np.float64)
+    return np.sum(np.where(ok, s[rows] * nss[:, None] * k, 0.0), axis=1)
+
+
 def accumulators(gas, mol):
     """{"kernel": f, "jnp": f}, each f(prep arrays, ns, start, size) -> (rows,
     size) line_sample optical depth of molecule ``mol``: the fused kernel
@@ -247,9 +284,30 @@ def phase_kernel_parity(info):
         rel = rel_diff(got, ref, PARITY_FLOOR)
         worst = max(worst, rel)
         print(f"  [{start}, {start + size}) max rel diff {rel:.3e}")
+        if size == grid.n:
+            full = (got, ref)
     info["parity_max_rel"] = worst
     if worst > PARITY_RTOL:
         raise AssertionError(f"kernel parity {worst:.3e} > {PARITY_RTOL}")
+
+    # Both paths against float64 where they differ most.
+    got, ref = full
+    gap = np.abs(got.astype(np.float64) - ref) / np.maximum(np.abs(ref),
+                                                            PARITY_FLOOR)
+    points = [np.unravel_index(i, gap.shape)
+              for i in np.argsort(gap, axis=None)[-F64_POINTS:]]
+    exact = float64_tau(gas, mol, prep, ns, points)
+    den = np.maximum(np.abs(exact), PARITY_FLOOR)
+    errs = {name: np.array([a[p] for p in points]) / den - exact / den
+            for name, a in (("kernel", got), ("jnp", ref))}
+    for name, e in errs.items():
+        print(f"  {name:6s} vs float64 at the {F64_POINTS} worst points: "
+              f"max |rel| {np.abs(e).max():.3e}, signs +{int((e > 0).sum())}"
+              f"/-{int((e < 0).sum())}")
+    info["kernel_f64_max_rel"] = float(np.abs(errs["kernel"]).max())
+    if info["kernel_f64_max_rel"] > F64_RTOL:
+        raise AssertionError(f"kernel vs float64 "
+                             f"{info['kernel_f64_max_rel']:.3e} > {F64_RTOL}")
 
 
 def test_module(name):

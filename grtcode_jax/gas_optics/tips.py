@@ -148,10 +148,24 @@ def default_tips():
     """The default partition-function provider, in preference order:
     $GRTCODE_JAX_TIPS table file > the packaged ``data/tips2017.npz``
     (generated by ``tools/convert_tips.py generate``, pinned to the
-    reference's test_tips2017.c values) > the power-law fallback."""
+    reference's test_tips2017.c values) > the power-law fallback.
+
+    A set variable never falls through to the packaged tables: a missing
+    file raises, and so does a ``GRTCODE_<name>_TIPS`` variable under any
+    other prefix (the package's earlier name, or a misspelling)."""
     global _default_cache
+    stray = sorted(k for k in os.environ
+                   if k.startswith("GRTCODE_") and k.endswith("_TIPS")
+                   and k != DEFAULT_TABLE_ENV)
+    if stray:
+        raise ValueError(f"{', '.join(stray)} is not read; set "
+                         f"{DEFAULT_TABLE_ENV} to the partition-function "
+                         "table instead")
     path = os.environ.get(DEFAULT_TABLE_ENV)
-    if path and os.path.exists(path):
+    if path:
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"{DEFAULT_TABLE_ENV}={path}: no such "
+                                    "file")
         return TabulatedTips(path)
     if _default_cache is None:
         if os.path.exists(_PACKAGED_TABLE):

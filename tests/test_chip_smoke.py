@@ -87,3 +87,42 @@ def test_auto_takes_the_kernel_on_gpu(gpu):
     from grtcode_jax.spectral import SpectralGrid
 
     assert GasOptics(SpectralGrid(1.0, 10.0, 0.1))._use_kernel()
+
+
+def test_float64_tau_matches_jnp_path():
+    """chip_smoke's float64 reference sum equals the float32 jnp path at
+    sampled points of a small catalog (near core and far wings)."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from grtcode_jax.gas_optics.gas_optics import GasOptics
+    from grtcode_jax.gas_optics.hitran import synthetic_catalog
+    from grtcode_jax.gas_optics.lines import prepare
+    from grtcode_jax.spectral import SpectralGrid
+
+    grid = SpectralGrid(1000.0, 1100.0, 0.1)
+    rng = np.random.default_rng(4)
+    L = 400
+    gas = GasOptics(grid, line_chunk=256, pallas="off")
+    gas.add_catalog(synthetic_catalog(
+        1, np.sort(rng.uniform(995.0, 1105.0, L)),
+        10.0 ** rng.uniform(-23.0, -19.5, L),
+        yair=rng.uniform(0.02, 0.1, L), yself=rng.uniform(0.05, 0.4, L),
+        en=rng.uniform(0.0, 2000.0, L), n=rng.uniform(0.4, 0.8, L),
+        d=rng.uniform(-0.01, 0.01, L)))
+    rows = 6
+    prep = prepare(gas.molecules[1], grid,
+                   jnp.geomspace(1e-3, 1.0, rows, dtype=jnp.float32),
+                   jnp.linspace(210.0, 290.0, rows, dtype=jnp.float32),
+                   jnp.full((rows,), 1e-3, jnp.float32), tips=gas.tips)
+    arrays = (prep.center_idx, prep.center_frac, prep.strength,
+              prep.lorentz, prep.doppler)
+    ns = jnp.full((rows,), 1e21, jnp.float32)
+    tau = np.asarray(chip_smoke.accumulators(gas, 1)["jnp"](
+        arrays, ns, 0, grid.n))
+    points = [(r, int(g)) for r in range(rows)
+              for g in rng.integers(0, grid.n, 20)]
+    points.append(np.unravel_index(tau.argmax(), tau.shape))
+    exact = chip_smoke.float64_tau(gas, 1, arrays, ns, points)
+    got = np.array([tau[p] for p in points])
+    assert exact.max() > 1.0
+    np.testing.assert_allclose(got, exact, rtol=1e-5, atol=1e-12)

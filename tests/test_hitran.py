@@ -269,3 +269,22 @@ def test_native_parser_matches_python(tmp_path):
     for f in ("iso", "vnn", "snn", "yair", "yself", "en", "n", "d"):
         np.testing.assert_array_equal(getattr(cat_n, f), getattr(cat_p, f),
                                       err_msg=f)
+
+
+@pytest.mark.parametrize("name,value,want", [
+    ("GRTCODE_OLDNAME_TIPS", "tables.npz", ValueError),
+    (tips_mod.DEFAULT_TABLE_ENV, "no/such/tables.npz", FileNotFoundError),
+    (tips_mod.DEFAULT_TABLE_ENV, None, tips_mod.TabulatedTips)])
+def test_default_tips_honours_or_refuses_a_set_variable(monkeypatch, name,
+                                                        value, want):
+    """A set table variable is used or refused, never skipped: a missing
+    file or a TIPS variable under another prefix raises instead of quietly
+    falling back to the packaged tables."""
+    if value is None:
+        value = tips_mod._PACKAGED_TABLE
+    monkeypatch.setenv(name, value)
+    if issubclass(want, Exception):
+        with pytest.raises(want, match=name):
+            tips_mod.default_tips()
+    else:
+        assert isinstance(tips_mod.default_tips(), want)
